@@ -84,33 +84,27 @@ def test_per_triangle_reflectance(room):
     assert float(jnp.sum(sim.photon_map)) > 0
 
 
-def test_bounce_mxu_slot_space_matches_clustered(room):
-    """The mxu backend's gather-free slot-space bounce path (launch.py
-    contract: geometry pre-expanded to slot space, histograms stay in slot
-    space across bounces — round-2 verdict #6) produces bit-identical counts
-    to the clustered backend's original-id path at depth 1: same photons,
-    same bounce RNG, both traversals exact, and the histogram is
-    order-invariant. (Depth >= 2 cannot be bit-compared across backends: the
-    mxu path coherence-sorts bounce rays between segments, so later RR draws
-    pair with permuted lanes — checked statistically instead.)"""
+@pytest.mark.parametrize("bounces", [1, 2, 4])
+def test_bounce_clustered_matches_jax(room, bounces):
+    """Both extend backends are exact and bounce segments re-launch through
+    the same backend in the same lane order, so the same photons and the
+    same bounce RNG give bit-identical counts at every depth (the histogram
+    is order-invariant)."""
     params = SimParams(
-        photon_count=4096, max_iterations=1, max_bounces=1, reflectance=0.6,
-        precision="highest",
+        photon_count=4096, max_iterations=1, max_bounces=bounces, reflectance=0.6,
     )
 
-    def run(backend, bounces):
+    def run(backend):
         sim = Simulator(
             room,
-            dataclasses.replace(params, traversal=backend, max_bounces=bounces),
+            dataclasses.replace(params, traversal=backend),
             route=[LightPos(0.2, -0.1, 1.0)],
             ray_chunk=1024,
-            max_clusters=1 << 30,  # budget-free: exact like the mxu kernel
+            max_clusters=1 << 30,  # budget-free
         )
         sim.run_iteration()
         return np.asarray(sim.photon_map)
 
-    np.testing.assert_array_equal(run("clustered", 1), run("mxu", 1))
-    m_c, m_m = run("clustered", 2), run("mxu", 2)
-    assert m_m.sum() > 4096  # bounces deposited extra dose
-    # depth-2 deposits agree statistically (same RR survival law)
-    assert abs(m_c.sum() - m_m.sum()) / m_c.sum() < 0.05
+    m_c, m_j = run("clustered"), run("jax")
+    np.testing.assert_array_equal(m_c, m_j)
+    assert m_j.sum() > 4096  # bounces deposited extra dose

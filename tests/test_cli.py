@@ -362,7 +362,7 @@ def test_compute_resume_extends(tmp_path):
     export_glb(glb, room.tris)
     # share compiled executables between the two subprocess runs — the cost
     # of this test is two cold jit compiles, not the tracing itself
-    env = dict(os.environ, UVTRACE_PLATFORM="cpu",
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
                JAX_COMPILATION_CACHE_DIR=str(tmp_path / "jaxcache"),
                JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS="0")
 

@@ -50,17 +50,18 @@ def test_matches_count_estimator_unoccluded():
     np.testing.assert_allclose(count_irr.mean(), analytic_irr.mean(), rtol=0.05)
 
 
-def test_mxu_visibility_backend_matches_clustered(room_scene):
-    """round-4 verdict weak #1: the diff layer can run its shadow rays on
-    the MXU kernel (TPU fast path; interpret mode here — same code path).
-    Visibility is binary and backend-agnostic, so the estimates match."""
-    room, scene_cl = room_scene
-    scene_mxu = make_diff_scene(room, backend="mxu", precision="highest")
+def test_jax_visibility_backend_matches_clustered(room_scene):
+    """Shadow rays through the per-ray BVH walk and through the budget-free
+    clustered backend: visibility is binary and backend-agnostic, so the
+    estimates agree."""
+    room, _ = room_scene
+    scene_cl = make_diff_scene(room, backend="clustered")
+    scene_jax = make_diff_scene(room, backend="jax")
     key = jax.random.PRNGKey(5)
     args = (jnp.array([0.3, -0.4]), room.floor_height + 0.8, 1.0, 450.0, key)
     e_cl = np.asarray(irradiance(scene_cl, *args, n_samples=2))
-    e_mxu = np.asarray(irradiance(scene_mxu, *args, n_samples=2))
-    np.testing.assert_allclose(e_mxu, e_cl, rtol=2e-3, atol=1e-6)
+    e_jax = np.asarray(irradiance(scene_jax, *args, n_samples=2))
+    np.testing.assert_allclose(e_jax, e_cl, rtol=2e-3, atol=1e-6)
 
 
 def test_sharded_visibility_bit_identical(room_scene):
@@ -86,13 +87,13 @@ def test_sharded_visibility_bit_identical(room_scene):
     np.testing.assert_array_equal(g1, g8)
 
 
-def test_grad_through_mxu_backend(room_scene):
-    """jax.grad works with the mxu visibility backend: gradients are severed
-    at _visibility's INPUTS, so the Pallas kernel (no JVP rule) is never
-    differentiated — the contract the TPU optimize-route path relies on.
-    Gradients agree with the clustered backend (same estimator, same CRN)."""
-    room, scene_cl = room_scene
-    scene_mxu = make_diff_scene(room, backend="mxu", precision="highest")
+def test_grad_through_jax_backend(room_scene):
+    """jax.grad works with either visibility backend: gradients are severed
+    at _visibility's INPUTS, so the traversal is never differentiated.
+    Gradients agree between backends (same estimator, same CRN)."""
+    room, _ = room_scene
+    scene_cl = make_diff_scene(room, backend="clustered")
+    scene_jax = make_diff_scene(room, backend="jax")
     key = jax.random.PRNGKey(3)
     base_y = room.floor_height + 0.8
 
@@ -101,10 +102,10 @@ def test_grad_through_mxu_backend(room_scene):
                                    n_samples=2))
 
     x0 = jnp.array([0.2, -0.1])
-    g_mxu = np.asarray(jax.grad(lambda xz: f(scene_mxu, xz))(x0))
+    g_jax = np.asarray(jax.grad(lambda xz: f(scene_jax, xz))(x0))
     g_cl = np.asarray(jax.grad(lambda xz: f(scene_cl, xz))(x0))
-    assert np.isfinite(g_mxu).all()
-    np.testing.assert_allclose(g_mxu, g_cl, rtol=5e-3, atol=1e-7)
+    assert np.isfinite(g_jax).all()
+    np.testing.assert_allclose(g_jax, g_cl, rtol=5e-3, atol=1e-7)
 
 
 def test_gradient_matches_finite_difference(room_scene):

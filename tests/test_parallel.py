@@ -123,23 +123,29 @@ def test_simulator_sharded_bounce_bitexact(setup):
     assert maps[8].sum() / 3.0 > 4096
 
 
-def test_simulator_sharded_mxu_kernel(setup):
-    """The MXU Pallas kernel under shard_map (interpret mode on the CPU
-    mesh — the exact kernel code path TPU multi-chip runs), vs the same
-    Simulator unsharded."""
+@pytest.mark.parametrize("layout", ["rays4", "rays2x2texels"])
+def test_simulator_sharded_jax_backend(setup, layout):
+    """The per-ray BVH walk under shard_map, on a 1-D ray mesh and on the
+    2-D rays x texels mesh, vs the same Simulator unsharded: bit-identical
+    per-triangle and per-texel counts."""
     from uvtrace.io.routexml import LightPos
+    from uvtrace.parallel import make_2d_mesh
     from uvtrace.sim import SimParams, Simulator
 
     room, _ = setup
-    params = SimParams(photon_count=4 * 1024, max_iterations=1, traversal="mxu",
-                       precision="highest")
+    params = SimParams(photon_count=4 * 1024, max_iterations=1, traversal="jax",
+                       texel_density=4.0)
+    device_mesh = (make_ray_mesh(4) if layout == "rays4"
+                   else make_2d_mesh(ray_shards=2, texel_shards=2))
     maps = {}
-    for nd in (None, 4):
+    for dm in (None, device_mesh):
         sim = Simulator(
             room, params, route=[LightPos(0.0, 0.0, 1.0)], ray_chunk=1024,
-            device_mesh=None if nd is None else make_ray_mesh(nd),
+            device_mesh=dm,
         )
         sim.run_iteration()
-        maps[nd] = np.asarray(sim.photon_map)
-    assert np.array_equal(maps[None], maps[4])
-    assert maps[4].sum() == 4 * 1024  # closed room: every photon lands
+        maps[dm is None] = (np.asarray(sim.photon_map), np.asarray(sim.photon_map_tex))
+    assert sim.backend == "jax"
+    np.testing.assert_array_equal(maps[True][0], maps[False][0])
+    np.testing.assert_array_equal(maps[True][1], maps[False][1])
+    assert maps[False][0].sum() == 4 * 1024  # closed room: every photon lands

@@ -239,17 +239,3 @@ def test_cluster_budget_loose_is_exact(room):
     sim2 = Simulator(room, params_jax, ray_chunk=1024)
     sim2.run_iteration()
     assert np.array_equal(np.asarray(sim.photon_map), np.asarray(sim2.photon_map))
-
-
-def test_mxu_backend_switches_to_hbm_tiles_for_big_scenes():
-    """Past ~392k padded slots the VMEM-resident tile layout cannot compile;
-    the Simulator switches the MXU kernel to HBM-resident tiles with a
-    double-buffered per-visit DMA (bit-identical results, PERF.md r4)."""
-    big = make_box_room(subdivisions=190, clutter=40)  # > 392k padded tris
-    assert big.triangle_count > 392_000
-    sim = Simulator(big, dataclasses.replace(PARAMS, traversal="mxu"))
-    assert sim._hbm_tiles
-    assert sim._extend.keywords["hbm_tiles"] is True
-    small = make_box_room(subdivisions=4)
-    sim2 = Simulator(small, dataclasses.replace(PARAMS, traversal="mxu"))
-    assert not sim2._hbm_tiles

@@ -13,7 +13,7 @@ Differences from the reference (documented, intentional):
   preallocated 2T pool with parallel subtree ranges (bvh.cpp:33-42) — the
   flat arrays are equivalent, just densely packed;
 - an optional `max_leaf_size` forces further median splits of big leaves so
-  the TPU traversal kernel has a bounded leaf loop (None = reference
+  the per-ray traversal has a bounded leaf loop (None = reference
   behavior).
 """
 

@@ -3,7 +3,7 @@
 Compiled on first use with g++ -O3 -fopenmp (no pybind11 in this
 environment — plain C ABI + ctypes). Falls back cleanly when no compiler is
 available; `available()` reports the state. Used for both the fine BVH
-("jax" backend) and triangle clustering (clustered/pallas backends), where it
+("jax" backend) and triangle clustering ("clustered" backend), where it
 replaces the vectorized-NumPy builders at ~20-100x their speed on large
 scenes — the same role the reference's SSE/OpenMP builder plays (bvh.cpp).
 """

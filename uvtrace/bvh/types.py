@@ -2,8 +2,8 @@
 
 Same information content as the reference's 32-byte `BVHNode`
 (bvh.h:11-21: aabbMin, leftFirst, aabbMax, triCount) plus the `triIdx`
-permutation — but stored as separate flat arrays, the layout TPU gathers and
-Pallas block DMA want. Internal nodes have tri_count == 0 and children at
+permutation — but stored as separate flat arrays, the layout batched XLA
+gathers want. Internal nodes have tri_count == 0 and children at
 (left_first, left_first+1); leaves have tri_count > 0 triangles starting at
 tri_idx[left_first].
 

@@ -22,6 +22,8 @@ import json
 import sys
 from pathlib import Path
 
+from uvtrace.ops.select import TRAVERSALS
+
 
 class CLIError(Exception):
     """Fail-fast user-facing error: one actionable line, nonzero exit —
@@ -72,7 +74,6 @@ def _apply_param_flags(params, args):
         "max_bounces",
         "reflectance",
         "seed",
-        "precision",
         "texel_density",
         "texel_max_slots",
     ]:
@@ -91,11 +92,8 @@ def _add_param_flags(p):
     p.add_argument("--min-dosage", dest="min_dosage", type=float)
     p.add_argument("--min-power", dest="min_power", type=float)
     p.add_argument("--sampler", choices=["native", "stratified", "reference"])
-    p.add_argument("--traversal",
-                   choices=["auto", "clustered", "jax", "pallas", "mxu",
-                            "mxu-fused"])
-    p.add_argument("--precision", choices=["highest", "high", "fast"],
-                   help="mxu kernel matmul tier (see SimParams.precision)")
+    p.add_argument("--traversal", choices=TRAVERSALS,
+                   help="extend backend (auto: ops/select.py)")
     p.add_argument("--bounces", dest="max_bounces", type=int)
     p.add_argument("--reflectance", type=float)
     p.add_argument("--seed", type=int)
@@ -448,6 +446,15 @@ def cmd_optimize_route(args):
             n_bounces=max(1, params.max_bounces),
             n_sources=args.sources,
         )
+    from uvtrace.utils.timing import Timer
+
+    step_timer = Timer()
+
+    def step_progress(i, loss):
+        # seconds since the previous step; step 0 includes the compile
+        print(f"step {i}: loss {loss:.4f} ({step_timer.elapsed():.3f} s)", file=sys.stderr)
+        step_timer.reset()
+
     res = optimize_route(
         scene,
         wp,
@@ -459,7 +466,7 @@ def cmd_optimize_route(args):
         learning_rate=args.lr,
         n_samples=args.samples,
         bounds=bounds,
-        progress=lambda i, l: print(f"step {i}: loss {l:.4f}", file=sys.stderr),
+        progress=step_progress,
         target_mask=target_mask,
         **bounce_kw,
     )
@@ -743,36 +750,13 @@ def main(argv=None):
     pb.add_argument("--rays", type=int, default=None,
                     help="photons per device per iteration")
     pb.add_argument("--iters", type=int, default=3)
-    pb.add_argument("--platform", choices=["cpu", "tpu"], default=None)
+    pb.add_argument("--platform", choices=["cpu", "gpu"], default=None)
     pb.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)
-    import os
+    from uvtrace.utils.compile_cache import enable_compile_cache
 
-    plat = os.environ.get("UVTRACE_PLATFORM")
-    if plat:
-        # explicit backend pin (e.g. UVTRACE_PLATFORM=cpu). A plain
-        # JAX_PLATFORMS env var can be overridden by site-installed device
-        # plugins; a config update after jax import always wins.
-        import jax
-
-        jax.config.update("jax_platforms", plat)
-    if os.environ.get("UVTRACE_NO_CACHE") != "1":
-        # persistent XLA compilation cache: the flagship pipeline's one-time
-        # compile is minutes on TPU (the kernels carry deep unrolled loops);
-        # cached executables bring every later process to sub-second startup
-        # — the reference pays its (much smaller) kernel build per process
-        # and mitigates with PTX dumps (template.cpp:1196-1212)
-        import jax
-
-        cache_dir = os.environ.get("UVTRACE_CACHE_DIR") or os.path.join(
-            os.path.expanduser("~"), ".cache", "uvtrace", "xla"
-        )
-        try:
-            jax.config.update("jax_compilation_cache_dir", cache_dir)
-            jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-        except Exception:
-            pass  # older jax without the knobs: run uncached
+    enable_compile_cache()
     from uvtrace.i18n import set_language, tr
 
     set_language(args.lang)

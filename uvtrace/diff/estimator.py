@@ -33,7 +33,6 @@ Units follow RayTracer::Shade (raytracer.cpp:96-116): multiply irradiance
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import jax
@@ -48,120 +47,45 @@ class DiffScene(NamedTuple):
     e1: jax.Array  # f32[T,3] v1-v0
     e2: jax.Array  # f32[T,3] v2-v0
     normal: jax.Array  # f32[T,3] unit normals
-    # occluder representation for shadow rays (clustered scene, any backend)
+    # occluder representation for shadow rays: extend_fn(trav_scene, o, d)
+    # -> (t, original triangle ids[, overflow])
     trav_scene: object
     extend_fn: object
-    # hit-id space of extend_fn: None = original triangle ids (clustered);
-    # i32[slots] padded-slot -> tri map for the mxu backend. Visibility
-    # never needs it; the dose-image planner (diff/image.py) does.
-    slot_to_tri: object = None
 
 
-def make_diff_scene(mesh, max_clusters=None, backend: str = "auto",
-                    precision: str = "high", device_mesh=None) -> DiffScene:
+def make_diff_scene(mesh, backend: str = "auto", device_mesh=None) -> DiffScene:
     """Build the differentiable scene; `backend` picks the shadow-ray
-    traversal. Visibility is consumed under stop_gradient and only reads
-    t_hit, so ANY backend is legal there — "auto" selects the MXU
-    cluster-intersection kernel on TPU (40+ Mrays/s vs ~1 for the clustered
-    packet culler; round-4 verdict weak #1: production optimize-route traces
-    ~2.2M shadow rays per step, with the bounce term ~40x that) and the
-    budget-free clustered path on CPU (the MXU kernel's interpret mode is
-    exact but slow — available as backend="mxu" for parity tests).
+    traversal (ops/select.py). Visibility is consumed under stop_gradient
+    and only reads t_hit, so any exact backend is legal there. Shadow rays
+    point from a few source points to samples spread over EVERY triangle,
+    so a packet's frustum covers the whole scene: the clustered backend is
+    built budget-free here, because any nearest-entry budget would silently
+    drop occluders (V=1 where shadowed: over-estimated dose AND wrong
+    gradients).
 
     device_mesh: optional 1-D ('rays',) jax.sharding.Mesh — shadow-ray
     batches then shard over the ray axis (shard_map + tiled all_gather of
-    the t results over ICI; scene replicated, a few MB), scaling
-    optimize-route / dose_image like every other launch. Results are
-    bit-identical to the single-device scene (visibility is deterministic
-    and per-ray)."""
-    from uvtrace.ops.cluster import build_clusters
+    the t results; scene replicated, a few MB), scaling optimize-route /
+    dose_image like every other launch. Results are bit-identical to the
+    single-device scene (visibility is deterministic and per-ray)."""
+    from uvtrace.ops.select import build_extend, resolve_traversal
 
     tris = jnp.asarray(mesh.tris)
     v0, v1, v2 = tris[:, 0], tris[:, 1], tris[:, 2]
     e1, e2 = v1 - v0, v2 - v0
     n = jnp.cross(e1, e2)
     n = n / jnp.maximum(jnp.linalg.norm(n, axis=-1, keepdims=True), 1e-20)
-    cs = build_clusters(mesh.tris, cluster_size=128)
-    if backend == "auto":
-        backend = "mxu" if jax.default_backend() == "tpu" else "clustered"
-    if backend == "mxu":
-        from uvtrace.ops.traverse_mxu import (
-            build_mxu_scene,
-            needs_hbm_tiles,
-            traverse_mxu_slots,
-        )
-
-        mxu_scene = build_mxu_scene(cs)
-        interp = jax.default_backend() != "tpu"
-        # same VMEM-budget switch as the Simulator (sim/simulator.py)
-        hbm = needs_hbm_tiles(cs.n_clusters, cs.cluster_size)
-
-        def extend(scene_arrays, orig, dirs):
-            # the kernel consumes whole 1024-ray packets; shadow-ray batches
-            # are arbitrary sizes -> pad with parked rays. Slot ids are never
-            # remapped: visibility reads ONLY t_hit (slot->tri would cost a
-            # per-ray gather for nothing).
-            r = orig.shape[0]
-            # Coherence sort (direction octant, quantized origin cell):
-            # shadow rays point from a handful of source points to samples
-            # spread over EVERY triangle, so an unsorted 1024-ray packet's
-            # frustum covers the whole scene — the same failure mode bounce
-            # segments hit. The SAME ops/bounce.coherence_sort does the
-            # sorting (index= carries the original position; a second sort
-            # on it below inverts the permutation, no per-ray gathers).
-            from uvtrace.ops.bounce import coherence_sort
-
-            idx = jnp.arange(r, dtype=jnp.int32)
-            orig, dirs, _, idx_s = coherence_sort(
-                orig, dirs, jnp.ones((r,), bool), index=idx
-            )
-            pad = (-r) % 1024
-            if pad:
-                orig = jnp.concatenate(
-                    [orig, jnp.full((pad, 3), 1e6, jnp.float32)]
-                )
-                dirs = jnp.concatenate(
-                    [dirs,
-                     jnp.broadcast_to(
-                         jnp.array([0.0, 1.0, 0.0], jnp.float32), (pad, 3)
-                     )]
-                )
-            # packet=1024 (not the bounce default 4096): sorted shadow rays
-            # are MORE coherent than bounce segments — the sources cluster
-            # around the lamp — and 1024 measured faster (0.367 vs 0.427
-            # s/step on the production optimize-route run)
-            t, slot = traverse_mxu_slots(
-                scene_arrays, orig, dirs, precision=precision,
-                interpret=interp, hbm_tiles=hbm,
-            )
-            _, t, slot = jax.lax.sort(
-                (idx_s, t[:r], slot[:r]), dimension=0, num_keys=1
-            )
-            return t, slot
-
-        scene = DiffScene(
-            v0=v0, e1=e1, e2=e2, normal=n, trav_scene=mxu_scene,
-            extend_fn=extend, slot_to_tri=mxu_scene.tri_idx_flat,
-        )
-        return _shard_extend(scene, device_mesh)
-    from uvtrace.ops.traverse_clustered import cluster_arrays, traverse_clustered
-
-    ca = cluster_arrays(cs)
-    if max_clusters is None:
-        # shadow-ray packets point from one source to samples spread over
-        # EVERY triangle — their frustum covers the whole scene, so any
-        # nearest-entry budget silently drops occluders (V=1 where shadowed:
-        # over-estimated dose AND wrong gradients). No budget: exact.
-        max_clusters = cs.n_clusters
-    extend = functools.partial(traverse_clustered, max_clusters=max_clusters)
-    scene = DiffScene(v0=v0, e1=e1, e2=e2, normal=n, trav_scene=ca, extend_fn=extend)
+    ext = build_extend(mesh.tris, resolve_traversal(backend))
+    scene = DiffScene(
+        v0=v0, e1=e1, e2=e2, normal=n, trav_scene=ext.scene, extend_fn=ext.fn
+    )
     return _shard_extend(scene, device_mesh)
 
 
 def _shard_extend(scene: DiffScene, device_mesh) -> DiffScene:
     """Wrap the scene's extend_fn in a shard_map over the mesh's 'rays'
     axis: each device traces its slice of the shadow-ray batch, a tiled
-    all_gather replicates the (t, hit) results (8 B/ray over ICI), so
+    all_gather replicates the (t, hit) results (8 B/ray), so
     callers see ordinary replicated arrays — eager slicing included. No-op
     without a mesh."""
     if device_mesh is None:
@@ -197,7 +121,7 @@ def _shard_extend(scene: DiffScene, device_mesh) -> DiffScene:
         out_specs=(P(), P()),
         check_vma=False,
     )
-    step = ndev * 1024  # whole packets per shard for every backend
+    step = ndev * 1024  # whole 1024-ray packets per shard
 
     def extend(trav, o, d):
         r = o.shape[0]
@@ -232,10 +156,9 @@ def _visibility(scene: DiffScene, rod_points, qs, eps: float = 1e-3):
     points q[S,T,3]: 1.0 if the shadow ray reaches q before any other hit.
     Non-differentiable by construction: gradients are severed at the INPUTS
     (not just the output) — endpoints entering a shadow ray contribute no
-    tangents, which is the documented piecewise-constant contract AND what
-    lets the traversal run on backends without JVP rules (the Pallas MXU
-    kernel; differentiating the clustered backend's jnp traversal was pure
-    wasted tangent compute)."""
+    tangents, which is the documented piecewise-constant contract AND keeps
+    the traversal out of the differentiated program (its tangents would be
+    pure wasted compute)."""
     rod_points = jax.lax.stop_gradient(rod_points)
     qs = jax.lax.stop_gradient(qs)
     d = qs - rod_points
@@ -440,11 +363,23 @@ def _source_field(
             cos_src * cos_rcv / (np.pi * jnp.maximum(dist2_ss, 1e-12))
             * vis_ss * (1.0 - eye)
         )  # [M', M]
-        e_k = e_dir
-        for _ in range(1, n_bounces):
-            e_k = w * jnp.einsum("m,mn->n", rho_m * e_k, f_ss)  # E_{k}(m)
-            e_sum = e_sum + e_k
+        e_sum = _neumann_sum(e_dir, rho_m, f_ss, w, n_bounces)
     return x_m, n_m, rho_m * e_sum, w
+
+
+def _neumann_sum(e_dir, rho_m, f_ss, w, n_bounces: int):
+    """sum_{k=0}^{B-1} E_k over the source field, with E_0 = e_dir and
+    E_k(n) = w * sum_m rho_m E_{k-1}(m) F[m, n] (F: f_ss, zero diagonal)."""
+    e_k = e_sum = e_dir
+    for _ in range(1, n_bounces):
+        # the one float32 contraction on the product path: HIGHEST, so that
+        # a GPU does not run it in TF32 (~3 decimal digits), which would
+        # shift the bounce term and its gradients
+        e_k = w * jnp.einsum(
+            "m,mn->n", rho_m * e_k, f_ss, precision=jax.lax.Precision.HIGHEST
+        )
+        e_sum = e_sum + e_k
+    return e_sum
 
 
 def _receiver_transfer(scene, pts, normals, x_m, n_m, strength, source_chunk):

@@ -77,8 +77,6 @@ def plan_dose_image(
         extend2, orig, direction, float(lo[1]), float(hi[1]),
         skip_ceiling=skip_ceiling, ceiling_margin=ceiling_margin,
     )
-    if scene.slot_to_tri is not None:  # mxu backend: padded slots -> tri ids
-        hit = jnp.where(hit >= 0, scene.slot_to_tri[jnp.maximum(hit, 0)], -1)
     mask = hit >= 0
     safe = jnp.maximum(hit, 0)
     points = orig + t_hit[:, None] * direction

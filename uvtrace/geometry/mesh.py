@@ -2,7 +2,7 @@
 
 Role of the reference's ``Mesh`` (mesh.h:15-34, mesh.cpp:5-136): flat
 per-triangle vertex arrays + floor-height auto-detection. Here the scene is a
-plain dataclass of numpy arrays laid out for TPU-friendly consumption
+plain dataclass of numpy arrays laid out for batched device consumption
 (``(T,3,3)`` float32 vertices; derived areas/centroids computed vectorized).
 """
 

@@ -4,7 +4,7 @@ The reference's persistence is coarse (SURVEY.md §5): route XML auto-saved on
 shutdown/recompute and an in-session pausable iteration loop — the dose maps
 themselves never hit disk. Here the full simulation state checkpoints to one
 .npz: dose accumulators, iteration counters, RNG state, parameters, and
-route, so a run can resume across processes/hosts (the TPU equivalent of
+route, so a run can resume across processes/hosts (the batch equivalent of
 "Resume computation", userinterface.cpp:339-344).
 """
 

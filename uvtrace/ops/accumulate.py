@@ -1,23 +1,22 @@
 """Atomic-free per-triangle hit-count accumulation.
 
 Replaces the reference's global-memory `atomic_inc(&tempPhotonMap[triID])`
-(cl/extend.cl:95-98) — the one primitive that cannot be translated to TPU —
-with deterministic histogram formulations:
+(cl/extend.cl:95-98) with deterministic histogram formulations:
 
 - `"sort"`: sort hit ids then count each bin with two vectorized
   binary searches (searchsorted diff). O(R log R) in XLA's sort, exact i32
   counts, no scatter at all. Default.
 - `"segment"`: `jax.ops.segment_sum` of ones (XLA scatter-add).
-- `"onehot"`: tile-wise one-hot matmul on the MXU (exact in f32 for tile
-  sizes <= 2^24).
+- `"onehot"`: tile-wise one-hot reduction (exact in f32 for tile sizes
+  <= 2^24).
 
 All methods are deterministic (a test asset vs. the reference's atomics,
 SURVEY.md §5) and differentiable where it matters (the backward pass of dose
 accumulation is a gather, handled in uvtrace/diff).
 
 The reference keeps a separate f64 cumulative map (cl/accumulate.cl:4-14:
-photonMap += temp * timeStep; maxPhotonMap = max(...); temp = 0). TPU has no
-f64; `accumulate_dose` keeps exact i32/i64 counts and does the duration
+photonMap += temp * timeStep; maxPhotonMap = max(...); temp = 0). JAX runs
+without f64 by default; `accumulate_dose` keeps exact i32/i64 counts and does the duration
 weighting in f32 (counts <= 2^25 are exact in f64 on the CPU oracle; the f32
 path is covered by test tolerances).
 """
@@ -48,7 +47,7 @@ def counts_segment(hit_ids: jax.Array, num_bins: int) -> jax.Array:
 
 
 def counts_onehot(hit_ids: jax.Array, num_bins: int, tile: int = 2048) -> jax.Array:
-    """Histogram via MXU one-hot matmul over ray tiles, f32 accumulate."""
+    """Histogram via one-hot sums over ray tiles, f32 accumulate."""
     n = hit_ids.shape[0]
     pad = (-n) % tile
     ids = jnp.concatenate([hit_ids, jnp.full((pad,), -1, hit_ids.dtype)]) if pad else hit_ids
@@ -70,18 +69,6 @@ _METHODS = {"sort": counts_sort, "segment": counts_segment, "onehot": counts_one
 def hit_counts(hit_ids: jax.Array, num_bins: int, method: str = "sort") -> jax.Array:
     """int32[num_bins] histogram of non-negative hit ids."""
     return _METHODS[method](hit_ids, num_bins)
-
-
-def slots_to_tri(counts_slots: jax.Array, slot_map: jax.Array, t_count: int) -> jax.Array:
-    """Remap padded-cluster-slot counts to original-triangle counts.
-
-    slot_map[s] is the original id of slot s (-1 for cluster padding);
-    it is injective over valid slots, so this is a 67k-bin permutation-add —
-    done ONCE per launch instead of a 1-per-ray id gather (which costs ~16 ms
-    per 2^20 rays on TPU; counting in slot space keeps the hot loop gather-free).
-    """
-    seg = jnp.where(slot_map < 0, t_count, slot_map)
-    return jax.ops.segment_sum(counts_slots, seg, num_segments=t_count + 1)[:t_count]
 
 
 def accumulate_dose(photon_map, max_photon_map, counts, time_step):

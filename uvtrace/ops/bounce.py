@@ -12,7 +12,7 @@ A superset of the reference, which is explicitly direct-lighting-only
   Russian roulette keeps continuation unweighted and unbiased.
 - Bounced rays are re-launched through the same extend backend. They lose
   packet coherence, so bounce passes should use a traversal without a
-  candidate budget (the Pallas DFS kernel or clustered with a large budget).
+  candidate budget (the per-ray BVH walk, or clustered with a large budget).
 """
 
 from __future__ import annotations
@@ -82,48 +82,3 @@ def bounce_rays(key, orig, direction, t_hit, hit_ids, normals, reflectance, aliv
     new_orig = jnp.where(new_alive[..., None], new_orig, jnp.float32(1e6))
     new_dir = jnp.where(new_alive[..., None], new_dir, jnp.array([1.0, 0.0, 0.0]))
     return new_orig, new_dir, new_alive
-
-
-def coherence_sort(orig, direction, alive, cell_meters: float = 1.0,
-                   index=None):
-    """Re-pack bounce rays into packet-coherent order.
-
-    Bounced photons scatter over the whole room in all directions; a
-    1024-ray packet of them makes the packet-frustum traversal visit ~every
-    cluster (measured ~1.9 ms/packet vs ~35 us for stratified primaries).
-    Sorting by (direction octant, quantized origin cell) restores locality.
-    One variadic lax.sort carries all ray fields along with the key — no
-    per-ray gathers (XLA TPU gathers run ~1 element/cycle).
-
-    Dead lanes sort to the end (key max), forming all-dead packets whose
-    parked rays cull instantly.
-
-    index: optional i32[N] carried through the sort and returned as a 4th
-    output — callers that must UNDO the permutation (the diff layer's
-    shadow rays, uvtrace/diff/estimator.py) sort their results back on it.
-    """
-    oct_ = (
-        (direction[:, 0] >= 0).astype(jnp.int32) * 4
-        + (direction[:, 1] >= 0).astype(jnp.int32) * 2
-        + (direction[:, 2] >= 0).astype(jnp.int32)
-    )
-    cell = jnp.zeros_like(oct_)
-    for a in range(3):
-        cell = cell * 8 + (
-            jnp.floor(orig[:, a] / cell_meters).astype(jnp.int32) & 7
-        )
-    key = jnp.where(alive, oct_ * 512 + cell, jnp.int32(1 << 30))
-    operands = (key, orig[:, 0], orig[:, 1], orig[:, 2],
-                direction[:, 0], direction[:, 1], direction[:, 2], alive)
-    if index is not None:
-        operands = operands + (index,)
-    out = jax.lax.sort(operands, dimension=0, num_keys=1)
-    _, ox, oy, oz, dx, dy, dz, alive = out[:8]
-    result = (
-        jnp.stack([ox, oy, oz], axis=-1),
-        jnp.stack([dx, dy, dz], axis=-1),
-        alive,
-    )
-    if index is not None:
-        return result + (out[8],)
-    return result

@@ -1,8 +1,8 @@
-"""Triangle clustering for the TPU two-phase traversal.
+"""Triangle clustering for the two-phase clustered traversal.
 
-The reference's per-ray BVH descent (cl/extend.cl:40-81) is pointer chasing —
-the worst possible shape for a vector machine. The TPU-native formulation
-(SURVEY.md §7 "hard parts" #1) replaces it with:
+The reference's per-ray BVH descent (cl/extend.cl:40-81) is pointer chasing.
+The clustered formulation (SURVEY.md §7 "hard parts" #1) trades it for
+regular dense work:
 
   phase 1 (cull):      dense ray-packet x cluster-AABB tests — regular
                        vectorized compute, no gathers;

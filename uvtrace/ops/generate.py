@@ -13,10 +13,10 @@ Two samplers:
   lane's stream only advances when that lane resamples, so every photon's
   random sequence matches the reference algorithm exactly).
 - `generate_native`: threefry-based, rejection-free (uniform azimuth angle),
-  identical distribution, faster and stateless — the TPU fast path.
+  identical distribution, faster and stateless.
 
-Both return a `RayBatch` structure of arrays (the TPU-native replacement for
-the reference's 32-byte AoS `Ray` records, cl/tools.cl:8-14).
+Both return a `RayBatch` structure of arrays (in place of the reference's
+32-byte AoS `Ray` records, cl/tools.cl:8-14).
 """
 
 from __future__ import annotations
@@ -68,7 +68,7 @@ def generate_reference(n: int, light_pos, light_length, global_seed=0, start: in
     seeds, u_y = ref_rng.random_float(seeds)
     dir_y = u_y * 2.0 - 1.0
     # reference computes the horizontal magnitude in f64 (cl/generate.cl:21);
-    # f32 here (TPU has no f64) — |error| < 1ulp, covered by test tolerances.
+    # f32 here (JAX's default) — |error| < 1ulp, covered by test tolerances.
     xz_len = jnp.sqrt(jnp.maximum(0.0, 1.0 - dir_y * dir_y))
 
     # Masked vectorized rejection sampling of the unit disc. Lanes that have
@@ -139,7 +139,7 @@ def _stratum_grid(g: int, height_bands: int = 1) -> tuple[int, int, int]:
 
 def generate_stratified(key: jax.Array, n: int, light_pos, light_length,
                         packet: int = 1024, height_bands: int = 4) -> RayBatch:
-    """Packet-stratified sphere sampler — the TPU-coherent fast path.
+    """Packet-stratified sphere sampler — packet-coherent and lower-variance.
 
     The unit sphere (in Lambert cylindrical coordinates: cos-theta = dir_y,
     azimuth phi — an equal-area parameterization) is divided into n/packet
@@ -151,7 +151,7 @@ def generate_stratified(key: jax.Array, n: int, light_pos, light_length,
     budget small (ops/traverse_clustered.py).
 
     The reference has no analogue — its photons are i.i.d. uniform
-    (cl/generate.cl:20-33); this is a deliberate TPU-first redesign.
+    (cl/generate.cl:20-33); this is a deliberate redesign.
 
     n must be a multiple of `packet`.
     """

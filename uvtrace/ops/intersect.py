@@ -2,9 +2,10 @@
 
 Reference: cl/extend.cl — Möller–Trumbore `IntersectTri` (:6-27, parallel
 reject |det| < 1e-5, near clip t > 1e-4) and slab-test `IntersectAABB`
-(:29-38). Vectorized over arbitrary leading batch dims; used by the pure-JAX
-traversal, the Pallas kernel (same formulas inline), and the brute-force
-correctness oracle.
+(:29-38). Vectorized over arbitrary leading batch dims; used by both traversal
+backends and the brute-force correctness oracle. Everything here is
+elementwise float32 arithmetic with no matrix product, so no matmul
+precision setting (TF32 on a GPU) can touch it.
 """
 
 from __future__ import annotations

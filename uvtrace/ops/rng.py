@@ -10,7 +10,7 @@ Two RNG families:
    algorithm.
 
 2. **Native RNG** — `jax.random` threefry counter-based keys: stateless,
-   order-independent, the idiomatic TPU choice for the fast path.
+   order-independent, the idiomatic JAX choice for the fast path.
 
 All reference-mode state is explicit (uint32 arrays) — no mutable globals.
 The reference's racy cross-launch `SEED` static (cl/generate.cl:6,39 — thread 0

@@ -7,7 +7,7 @@ irradiance, W/m^2 -> µW/cm^2 via x100); `dosageToColor` (:43-71) with the
 5-stop blue->cyan->green->yellow->red gradient (`greyscale_to_heatmap`,
 :4-21) and the threshold view (sub-0.5 rendered as a dark blue ramp).
 
-Pure jnp — XLA fuses these elementwise maps; no Pallas needed.
+Pure jnp — XLA fuses these elementwise maps.
 """
 
 from __future__ import annotations

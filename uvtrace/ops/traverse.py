@@ -10,8 +10,8 @@ the scene arrays per-ray: cond batching materializes `select_n` over hoisted
 closure operands), and the leaf loop is a *static* `max_leaf`-bounded
 iteration so shapes stay fixed.
 
-This is the portable implementation (CPU + TPU) and the correctness baseline
-for the Pallas packet kernel (ops/traverse_pallas.py).
+This is the default extend backend on every device (ops/select.py) and is
+checked against the brute-force oracle (ops/intersect.py).
 
 Triangles are consumed in *leaf-sorted* order (FlatBVH.sorted_tris) so leaf
 reads are near-contiguous gathers; returned hit ids are sorted-space indices

@@ -1,7 +1,6 @@
-"""Two-phase clustered traversal (pure JAX — the portable TPU fast path).
+"""Two-phase clustered traversal (pure JAX).
 
-Replaces per-ray BVH descent with packet-granular work that maps onto the
-VPU/MXU (SURVEY.md §7):
+Replaces per-ray BVH descent with packet-granular dense work (SURVEY.md §7):
 
   phase 1: every ray packet (default 1024 rays) is tested against *all*
            cluster AABBs — a dense [packet, L] slab test with no gathers;

@@ -2,23 +2,23 @@
 
 The reference is a single-process, single-GPU application; scale-out is a
 new-framework deliverable (BASELINE: ">= 85% efficiency at 2 hosts",
-config 5: rays+texels sharded over a pod slice). Design:
+config 5: rays+texels sharded over several devices). Design:
 
 - `initialize()` wraps jax.distributed.initialize — call once per process
-  before any JAX op; with TPU pods the coordinator/process env is usually
-  auto-detected.
+  before any JAX op, with the coordinator address (`localhost:<port>` on one
+  host), the process count and this process's id.
 - the global mesh spans all hosts' devices; the `rays` axis carries the
   embarrassingly parallel photon batch, the optional `texels` axis shards
   large dose maps (per-triangle maps are small, but texel-atlas maps at 4K
-  resolution are ~16M bins — reduce-scatter over `texels` keeps each chip's
-  partial bounded while `psum` over `rays` rides ICI).
+  resolution are ~16M bins — reduce-scatter over `texels` keeps each
+  device's partial bounded while `psum` over `rays` sums the rest).
 - collectives: hit-count partials are `psum`ed over `rays`; with a texel
   axis the histogram is computed per texel-shard (each device bins only ids
   in its own range) so the cross-host traffic is one reduce per step.
 
 This module is exercised in-process via
 XLA_FLAGS=--xla_force_host_platform_device_count (tests/conftest.py) and by
-the driver's dryrun_multichip; real multi-host runs only need
+dryrun_multichip (__graft_entry__.py); real multi-host runs only need
 `initialize()` + the same code.
 """
 
@@ -39,8 +39,8 @@ def initialize(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> None:
-    """Initialize jax.distributed (no-op if already initialized or single
-    process). On TPU pods all arguments are auto-detected."""
+    """Initialize jax.distributed (no-op if already initialized). Outside a
+    cluster manager that advertises them, pass all three arguments."""
     try:
         jax.distributed.initialize(
             coordinator_address=coordinator_address,

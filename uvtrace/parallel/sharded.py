@@ -1,23 +1,24 @@
 """Multi-chip execution — ONE sharded pipeline, shared with the Simulator.
 
 The reference is single-GPU (SURVEY.md §2 'Distributed communication backend:
-none'); this module is the TPU-native scale-out design:
+none'); this module is the scale-out design:
 
 - the photon batch is embarrassingly parallel -> shard the `rays` axis;
-- the scene (clusters + feature tiles, a few MB) is replicated on every chip;
-- each chip runs the SAME chunked launch pipeline (`launch_counts`,
+- the scene (BVH or clusters, a few MB) is replicated on every device;
+- each device runs the SAME chunked launch pipeline (`launch_counts`,
   uvtrace/sim/launch.py) over its own GLOBAL chunk range, so the photon
   population — and therefore every count — is bit-identical to a
   single-device run of the whole launch (global-chunk-index RNG folding);
-- per-triangle count partials are summed with one `psum` over ICI — the
-  collective that replaces the reference's atomic_inc global-memory
-  contention (cl/extend.cl:95-98);
+- per-triangle count partials are summed with one `psum` — the collective
+  that replaces the reference's atomic_inc global-memory contention
+  (cl/extend.cl:95-98); every device reaches every other at the same rate
+  (NVLink, all to all), so the mesh follows the algorithm alone;
 - large texel atlases (BASELINE config 5: 4K dose maps, ~16M slots) add a
   second mesh axis `texels`: every device still traces distinct photons, and
   its full-size texel partial is `psum_scatter`ed over the texel axis so each
   device *keeps* only its own slot range. Steady-state per-device texel state
   is n_texels / texel_shards; the full-size array exists only as the launch's
-  transient partial (67 MB at 4K — small next to HBM), and cross-device
+  transient partial (67 MB at 4K — small next to device memory), and cross-device
   traffic per launch is one scatter plus one shard-sized psum.
 
 There is deliberately no second implementation here: earlier rounds carried a
@@ -73,16 +74,13 @@ def sharded_launch_fn(
     extend_fn,
     max_bounces: int = 0,
     n_texels: int = 0,
-    extend_counts_fn=None,
-    fused_counts_fn=None,
-    extend_bounce_fn=None,
 ):
     """Build the jitted multi-device launch for `n_total` photons.
 
     Returns fn(scene, rng_in, lamp_xyz, light_length, aux) ->
     (counts[t_count], tex_counts, overflow) where `aux` is the dict of traced
     per-launch arrays launch_counts accepts (normals, reflectance, atlas,
-    tri_v0/e1/e2, slot_map / slot-space geometry).
+    tri_v0/e1/e2).
 
     Device d (linear index over the mesh) scans global chunks
     [d*k, (d+1)*k): the RNG folds the GLOBAL chunk index inside
@@ -117,9 +115,6 @@ def sharded_launch_fn(
         extend_fn=extend_fn,
         max_bounces=max_bounces,
         n_texels=n_texels,
-        extend_counts_fn=extend_counts_fn,
-        fused_counts_fn=fused_counts_fn,
-        extend_bounce_fn=extend_bounce_fn,
     )
 
     def shard_fn(scene, rng, lamp, ll, aux):
@@ -152,6 +147,6 @@ def sharded_launch_fn(
             mesh=mesh,
             in_specs=(P(), P(), P(), P(), P()),
             out_specs=(P(), out_tex_spec, P()),
-            check_vma=False,  # pallas outputs carry no vma annotations
+            check_vma=False,
         )
     )

@@ -6,7 +6,7 @@
   - the single-device Simulator path,
   - the shard_mapped multi-device path (uvtrace/parallel/sharded.py), where
     each device runs its own chunk range of the SAME global launch, and
-  - the driver's multi-chip dryrun.
+  - the multi-device dry run (__graft_entry__.py).
 Reference: ComputeSingleLightDosageMap (raytracer.cpp:75-88) + the wavefront
 kernels cl/generate.cl / cl/extend.cl / cl/accumulate.cl.
 """
@@ -24,7 +24,7 @@ from uvtrace.ops import generate as gen_ops
 
 @functools.partial(
     jax.jit,
-    static_argnames=("t_count", "n", "chunk", "sampler", "method", "extend_fn", "max_bounces", "n_texels", "extend_counts_fn", "fused_counts_fn", "extend_bounce_fn"),
+    static_argnames=("t_count", "n", "chunk", "sampler", "method", "extend_fn", "max_bounces", "n_texels"),
 )
 def launch_counts(
     scene,
@@ -46,25 +46,19 @@ def launch_counts(
     tri_v0=None,
     tri_e1=None,
     tri_e2=None,
-    slot_map=None,
-    extend_counts_fn=None,
-    fused_counts_fn=None,
-    extend_bounce_fn=None,
     chunk_offset=0,
 ):
     """Original-order int32[t_count] hit counts for one lamp launch of n photons.
 
     The wavefront inner loop (ComputeSingleLightDosageMap, raytracer.cpp:75-88)
     as one fused jit: generate -> traverse -> histogram, chunked with
-    `lax.scan` so HBM holds one ray chunk (not the reference's full 1 GiB ray
-    buffer, raytracer.cpp:137) and the traversal state stays bounded.
+    `lax.scan` so device memory holds one ray chunk (not the reference's full
+    1 GiB ray buffer, raytracer.cpp:137) and the traversal state stays bounded.
 
     rng_in: PRNGKey (uint32 SEED for sampler='reference').
     lamp_xyz / light_length are traced so waypoint moves don't recompile.
-    extend_fn(scene, orig, dir) -> (t, hit_original_ids) — or (t, slots) when
-    slot_map is given: the hot loop then histograms in padded-slot space
-    (gather-free) and remaps slot bins to triangles once at the end
-    (acc_ops.slots_to_tri).
+    extend_fn(scene, orig, dir) -> (t, hit_original_ids[, overflow]); a
+    budgeted backend's overflow is summed into the third output.
     chunk_offset (traced): global index of this call's first chunk. All RNG
     folding (photon ids in reference mode, chunk keys, bounce keys) uses the
     GLOBAL chunk index, so a sharded launch where device d runs chunks
@@ -73,36 +67,6 @@ def launch_counts(
     """
     n_chunks = max(1, (n + chunk - 1) // chunk)
     chunk_offset = jnp.asarray(chunk_offset, jnp.int32)
-    # Slot-space counting (mxu backend): hit ids stay PADDED CLUSTER SLOTS
-    # through the whole chunk — including bounce segments and texel binning —
-    # and bins remap to triangles ONCE at the end (acc_ops.slots_to_tri).
-    # CONTRACT: when slot_map is given, normals / reflectance / tri_v0/e1/e2
-    # and atlas.base/.k must arrive PRE-EXPANDED to slot space (the Simulator
-    # does this once per scene/launch) — that removes the per-ray slot->id
-    # gather entirely (XLA per-ray gathers run ~1 elem/cycle; a slot->id
-    # remap cost ~16 ms per 2^20 rays per bounce segment, round-2 verdict #6).
-    slot_space = slot_map is not None
-    n_bins = slot_map.shape[0] if slot_space else t_count
-    # in-kernel histogram: the traversal kernel bins winners itself (saves
-    # the XLA segment_sum scatter); requires whole chunks (counts cannot
-    # mask a padded tail). Serves bounce segments too: dead lanes are parked
-    # on rays that provably miss (ops/bounce.bounce_rays), so the kernel's
-    # unmasked histogram equals the alive-masked one.
-    counts_mode = extend_counts_fn is not None and slot_space and n % chunk == 0
-    # fully fused generate+trace+histogram: the kernel runs the stratified
-    # sampler on its in-kernel RNG, so rays never exist in HBM
-    # (ops/traverse_mxu.fused_trace_counts) — direct lighting only (bounce /
-    # texel need per-ray hit data). The in-kernel generator IS stratified;
-    # its stratum grid matches ops/generate._stratum_grid by construction —
-    # pinned by tests/test_traverse_mxu_fused.py.
-    fused_mode = (
-        fused_counts_fn is not None
-        and slot_space
-        and n % chunk == 0
-        and sampler == "stratified"
-        and max_bounces == 0
-        and atlas is None
-    )
 
     def texel_counts_of(orig, direction, t_hit, hit_ids):
         from uvtrace.ops import texel as texel_ops
@@ -114,15 +78,20 @@ def launch_counts(
         slots = texel_ops.texel_ids(atlas, hit_ids, u, v)
         return acc_ops.hit_counts(slots, n_texels, method)
 
+    def extend(orig, direction):
+        res = extend_fn(
+            scene, orig, direction, lamp_xyz=lamp_xyz, light_length=light_length
+        )
+        # budgeted backends (traverse_clustered with return_overflow) report
+        # dropped clusters: a nonzero total means possible silent hit loss —
+        # the Simulator redoes the launch (dose UNDER-estimation is the
+        # dangerous direction in a disinfection simulator)
+        ov = res[2] if len(res) > 2 else jnp.int32(0)
+        return res[0], res[1], ov
+
     def one_chunk(carry, i):
         counts, tex_counts, overflow = carry
         gi = chunk_offset + i  # global chunk index (shard-aware RNG stream)
-        if fused_mode:
-            key = jax.random.fold_in(rng_in, gi)
-            _, _, counts_chunk = fused_counts_fn(
-                scene, key, lamp_xyz, light_length, chunk
-            )
-            return (counts + counts_chunk, tex_counts, overflow), None
         if sampler == "reference":
             rays = gen_ops.generate_reference(
                 chunk, lamp_xyz, light_length, global_seed=rng_in, start=gi * chunk
@@ -135,49 +104,20 @@ def launch_counts(
         else:
             key = jax.random.fold_in(rng_in, gi)
             rays = gen_ops.generate_native(key, chunk, lamp_xyz, light_length)
-        def extend_once(orig, direction, kernel_counts=True):
-            """One extend pass; uses the in-kernel histogram when eligible.
-            Returns (t, hits[slot or id space], counts_delta, overflow_delta).
 
-            kernel_counts=False forces the split kernel + XLA histogram —
-            measured FASTER for bounce segments (incoherent packets visit
-            ~10x more clusters, and the in-kernel histogram loop pays per
-            visited cluster: 767 vs 734 ms per 4-bounce iteration on v5e)."""
-            if counts_mode and kernel_counts:
-                t_hit, hits, counts_chunk = extend_counts_fn(
-                    scene, orig, direction,
-                    lamp_xyz=lamp_xyz, light_length=light_length,
-                )
-                return t_hit, hits, counts_chunk, jnp.int32(0)
-            res = extend_fn(
-                scene, orig, direction, lamp_xyz=lamp_xyz, light_length=light_length
-            )
-            # budgeted backends (traverse_clustered with return_overflow)
-            # report dropped clusters: a nonzero total means possible silent
-            # hit loss — the Simulator raises (dose UNDER-estimation is the
-            # dangerous direction in a disinfection simulator)
-            ov = res[2] if len(res) > 2 else jnp.int32(0)
-            return res[0], res[1], None, ov
-
-        t_hit, hit_ids, counts_chunk, ov = extend_once(rays.orig, rays.dir)
+        t_hit, hit_ids, ov = extend(rays.orig, rays.dir)
         overflow = overflow + ov
-        # mask rays beyond n in the last (padded) chunk — LOCAL index.
-        # counts_mode implies whole chunks, so the kernel histogram needs none.
+        # mask rays beyond n in the last (padded) chunk — LOCAL index
         valid = i * chunk + jnp.arange(chunk) < n
         hit_ids = jnp.where(valid, hit_ids, -1)
-        if counts_chunk is not None:
-            counts = counts + counts_chunk
-        else:
-            counts = counts + acc_ops.hit_counts(hit_ids, n_bins, method)
+        counts = counts + acc_ops.hit_counts(hit_ids, t_count, method)
         if atlas is not None:
             tex_counts = tex_counts + texel_counts_of(rays.orig, rays.dir, t_hit, hit_ids)
 
         if max_bounces > 0:
             # diffuse interreflection with Russian roulette (ops/bounce.py);
-            # bounced rays lose packet coherence, so the extend backend must
-            # be budget-free (pallas DFS / clustered with a generous budget).
-            # Geometry (normals/reflectance) is indexed in the SAME space as
-            # hit_ids (slot space for the mxu backend — no per-ray remap).
+            # bounced rays lose packet coherence, which a budget-free
+            # extend backend does not pay for
             from uvtrace.ops.bounce import bounce_rays
 
             if sampler == "reference":
@@ -191,41 +131,20 @@ def launch_counts(
                 orig, direction, alive = bounce_rays(
                     kb, orig, direction, t_hit, hit_ids, normals, reflectance, alive
                 )
-                if slot_map is not None:
-                    # packet kernel: re-pack scattered bounce rays into
-                    # coherent packets (ops/bounce.coherence_sort)
-                    from uvtrace.ops.bounce import coherence_sort
-
-                    orig, direction, alive = coherence_sort(orig, direction, alive)
-                if extend_bounce_fn is not None:
-                    # incoherent-ray configuration of the packet kernel
-                    # (4096-ray packets: candidates grow sublinearly with the
-                    # window while matmul width amortizes per-visit fixed
-                    # costs — PERF.md round-4 bounce sweep)
-                    res_b = extend_bounce_fn(
-                        scene, orig, direction,
-                        lamp_xyz=lamp_xyz, light_length=light_length,
-                    )
-                    t_hit, hit_b = res_b[0], res_b[1]
-                else:
-                    t_hit, hit_b, _, ov = extend_once(
-                        orig, direction, kernel_counts=False
-                    )
-                    overflow = overflow + ov
+                t_hit, hit_b, ov = extend(orig, direction)
+                overflow = overflow + ov
                 hit_ids = jnp.where(alive, hit_b, -1)
-                counts = counts + acc_ops.hit_counts(hit_ids, n_bins, method)
+                counts = counts + acc_ops.hit_counts(hit_ids, t_count, method)
                 if atlas is not None:
                     tex_counts = tex_counts + texel_counts_of(orig, direction, t_hit, hit_ids)
         return (counts, tex_counts, overflow), None
 
     init = (
-        jnp.zeros((n_bins,), jnp.int32),
+        jnp.zeros((t_count,), jnp.int32),
         jnp.zeros((n_texels,), jnp.int32) if atlas is not None else jnp.zeros((1,), jnp.int32),
         jnp.zeros((), jnp.int32),
     )
     (counts, tex_counts, overflow), _ = jax.lax.scan(
         one_chunk, init, jnp.arange(n_chunks, dtype=jnp.int32)
     )
-    if slot_space:
-        counts = acc_ops.slots_to_tri(counts, slot_map, t_count)
     return counts, tex_counts, overflow

@@ -2,7 +2,7 @@
 
 Defaults mirror the reference's tunables (raytracer.h:28-37): 1 m lamp rod
 0.8 m above the floor, 2^25 photons per iteration (2^26 hard cap in the
-reference UI — here a soft advisory, the TPU build has no 2^27 color-buffer
+reference UI — here a soft advisory, this build has no 2^27 color-buffer
 corruption bug, Report §5.1), 10 iterations, 450 W lamp, 100 mJ/cm^2 minimum
 dose, 1500 µW/cm^2 minimum irradiance.
 """
@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+
+from uvtrace.ops.select import check_traversal
 
 
 class ViewMode(enum.Enum):
@@ -36,20 +38,13 @@ class SimParams:
     # "stratified" | "native" | "reference". Stratified (equal-area sphere
     # cells per ray packet) is the default: unbiased, strictly lower variance
     # than iid, and packet-coherent — the iid samplers make every packet's
-    # frustum cover the whole scene (~100x slower on the MXU kernel).
+    # frustum cover the whole scene, which the clustered traversal pays for.
     # "native" = iid threefry (the reference's distribution); "reference" =
     # bit-exact WangHash/xorshift32 replay of cl/generate.cl.
     sampler: str = "stratified"
-    accumulate_method: str = "segment"  # see ops/accumulate.py (segment ~10x
-    #   faster than sort on TPU for 2^20 rays -> 45k bins, measured)
-    traversal: str = "auto"  # "auto" | "clustered" | "jax" | "pallas" |
-    #   "mxu" | "mxu-fused" ("mxu" + generate-in-kernel for the stratified
-    #   direct-lighting path: rays never touch HBM; bounce/texel/iid modes
-    #   fall back to the split mxu path automatically)
-    precision: str = "high"  # mxu kernel matmul tier: "highest" (f32-exact,
-    #   what the tests/goldens use) | "high" (bf16x3: 0.006% hit reassignment,
-    #   ~8x below MC noise at default photon counts; 1.3x faster) | "fast"
-    #   (single bf16 pass: preview quality)
+    accumulate_method: str = "segment"  # see ops/accumulate.py
+    traversal: str = "auto"  # one of TRAVERSALS; "auto" resolves in
+    #   ops/select.resolve_traversal
     seed: int = 0
     # Multi-bounce diffuse interreflection (superset of the reference, which
     # is direct-lighting-only — Report §1.1; BASELINE config 2):
@@ -59,6 +54,9 @@ class SimParams:
     # BASELINE configs ask for fixed-resolution dose maps — ops/texel.py):
     texel_density: float = 0.0  # texels per meter; 0 = per-triangle only
     texel_max_slots: int = 1 << 22  # atlas budget
+
+    def __post_init__(self):
+        check_traversal(self.traversal)
 
     def photons_per_light(self, num_lights: int) -> int:
         """Per-lamp launch size: floor division rounded down to even

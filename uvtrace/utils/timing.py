@@ -3,8 +3,8 @@
 Replaces the reference's chrono Timer (template/precomp.h:277-288) and the
 per-iteration stdout line "Progress: X% photon count: N delta time: ... total
 time: ..." (myapp.cpp:166-169). Also wraps jax.profiler for device traces —
-the TPU upgrade over the reference's never-read CL_QUEUE_PROFILING_ENABLE
-queues (template/template.cpp:1446-1449, SURVEY.md §5).
+in place of the reference's never-read CL_QUEUE_PROFILING_ENABLE queues
+(template/template.cpp:1446-1449, SURVEY.md §5).
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Headless software rasterizer — the reference's OpenGL heatmap view
 (myapp.cpp:180-205 + shaders/shader3D.*) replaced by a chunked z-buffered
 edge-function rasterizer in jnp that renders per-triangle flat colors to an
-image. TPU hosts have no GL; rendering to PNG files is the L5 parity path.
+image. Headless hosts have no GL; rendering to PNG files is the L5 parity path.
 
 Algorithm: project triangles through the camera; for chunks of triangles,
 evaluate edge functions over the full image, keep per-pixel (depth, color)
